@@ -1,10 +1,10 @@
-"""swarm_tpu — a TPU-native amplicon clustering framework.
+"""swarm_tpu — amplicon clustering on a GPU, written in JAX.
 
 A from-scratch reimplementation of the capabilities of swarm
-(https://github.com/torognes/swarm, v3.1.6) designed for TPU hardware:
-the O(n·L) and O(n²) inner work (Zobrist hashing, microvariant
-enumeration, hash joins, qgram profiles, banded cost-space
-Needleman-Wunsch) runs as batched JAX/XLA/Pallas programs on device,
+(https://github.com/torognes/swarm, v3.1.6) for an accelerator: the
+O(n·L) and O(n²) inner work (microvariant hashing, sort joins, qgram
+screens, banded cost-space alignment) runs as batched JAX/XLA/Pallas
+programs on device,
 while the host owns parsing, ordering, graph assembly and output.
 
 Output is byte-compatible with the reference implementation

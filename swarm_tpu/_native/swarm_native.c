@@ -3,8 +3,8 @@
  * The reference implements its host pipeline in C++ (fasta parsing
  * src/db.cc:432-803, duplicate detection :719-790, abundance parsing
  * :161-283, sorting :388-413, BFS clustering src/algod1.cc:1185-1279).
- * These are latency-bound pointer/byte loops that gain nothing from a
- * TPU; this module is their native equivalent, exposed to Python via
+ * These are latency-bound pointer/byte loops that gain nothing from an
+ * accelerator; this module is their native equivalent, exposed to Python via
  * ctypes with numpy-owned buffers. Every function mirrors the Python
  * implementation in swarm_tpu/db.py / models/d1.py bit-for-bit — the
  * Python versions remain as the fallback and the differential-test
@@ -4022,10 +4022,10 @@ int cmp_u64(const void *x, const void *y) {
 /* clustering)                                                         */
 /* ------------------------------------------------------------------ */
 
-/* The TPU-first d>=2 formulation splits the reference's per-seed loop
+/* The device d>=2 formulation splits the reference's per-seed loop
  * (src/algo.cc:329-708) into (a) a bulk candidate-pair screen on the
- * MXU (ops/d2_network.py: all-pairs qgram Hamming distance as an int8
- * matmul), (b) exact per-pair diffs here, and (c) a graph-driven
+ * device (ops/d2_network.py: all-pairs qgram Hamming distance as an
+ * int8 matmul), (b) exact per-pair diffs here or on the device, and (c) a graph-driven
  * replay of the clustering loop (algo_cluster_graph) whose attachment
  * ordering is identical to algo_cluster's because pool elements always
  * remain in ascending-amplicon-id order (the initial order is the

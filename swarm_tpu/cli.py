@@ -88,7 +88,7 @@ def detect_cpu_features(p: Parameters) -> None:
 
     The reference probes cpuid (src/utils/x86_cpu_features.cc); we read
     /proc/cpuinfo which exposes the same flags. Only used for the
-    "CPU features:" log line — all computation here targets the TPU.
+    "CPU features:" log line; the device work runs on the GPU.
     """
     try:
         with open("/proc/cpuinfo", "r", encoding="ascii", errors="replace") as fh:

@@ -31,6 +31,9 @@ def run(argv, progname: str) -> int:
     args_show(p, p.logfile)
 
     progress = Progress(p.logfile, bool(p.opt_log))
+    from . import metrics
+
+    metrics.reset()
 
     # observability: SWARM_TPU_PROFILE_DIR captures a JAX profiler trace
     # of the whole run (the reference's PROFILE=1 build-mode analog);
@@ -66,6 +69,7 @@ def run(argv, progname: str) -> int:
     from .progress import trace_dump
 
     trace_dump()
+    metrics.dump()
     return 0
 
 

@@ -34,15 +34,13 @@ def algo_run(p: Parameters, db: Db, progress: Progress) -> None:
     from .. import _native
 
     backend = os.environ.get("SWARM_TPU_BACKEND", "auto")
-    # engine selection: "network" = bulk MXU qgram join + native exact
-    # diffs + graph-driven clustering replay (the TPU-first path, auto
-    # above 16k amplicons on a real accelerator in the 8-bit regime —
-    # measured crossover after the 16-lane batch DP: 20k x 400nt runs
-    # 0.62-0.76s on the network engine vs 0.83-1.16s on the seed loop,
-    # whose small per-seed batches underfill the vector lanes);
-    # "native" = the all-host C seed/subseed loop; the Python loop
-    # (with optional device screens) stays as the oracle and as the
-    # explicit SWARM_TPU_D2_ENGINE=python/device path
+    # engine selection: "network" = device int8 qgram join + exact
+    # diffs + graph-driven clustering replay (auto above 16k amplicons
+    # on an accelerator in the 8-bit regime; the 16k crossover is not
+    # yet measured on the GPU); "native" = the all-host C seed/subseed
+    # loop; the Python loop (with optional device screens) stays as
+    # the oracle and as the explicit SWARM_TPU_D2_ENGINE=python/device
+    # path
     engine = os.environ.get("SWARM_TPU_D2_ENGINE", "auto")
     bit_mode = set_bit_mode(d, p.penalty_mismatch, p.penalty_gapopen, p.penalty_gapextend)
     max_len = max(int(db.longest), 1)
@@ -53,18 +51,18 @@ def algo_run(p: Parameters, db: Db, progress: Progress) -> None:
             _native.available() and bit_mode == 8 and n >= 16384
             and backend in ("auto", "jax", "jax_probe", "jax_shard")
         ):
-            try:
-                from ..device import device_available, device_platform
+            from ..device import device_platform
 
-                if device_available() and device_platform() != "cpu":
-                    engine = "network"
-            except Exception:
-                pass
+            if device_platform() != "cpu":
+                engine = "network"
     if engine == "network" and not (_native.available() and bit_mode == 8):
         # the network formulation needs the native diff kernel and the
         # pure-pair 8-bit semantics (the 16-bit artifact's diffs depend
         # on the channel schedule, src/search16.cc)
         engine = "native" if _native.available() else "python"
+    from .. import metrics
+
+    metrics.engine(d2=engine)
 
     if engine == "network":
         progress.init("Find qgram vects: ", n)
@@ -110,12 +108,9 @@ def algo_run(p: Parameters, db: Db, progress: Progress) -> None:
     if engine == "device" or backend in ("jax", "jax_probe", "jax_shard") or (
         backend == "auto" and n * max_len >= 4_000_000
     ):
-        try:
-            from ..ops.search_jax import DeviceAligner
+        from ..ops.search_jax import DeviceAligner
 
-            device_aligner = DeviceAligner(padded, lengths)
-        except ImportError:
-            device_aligner = None
+        device_aligner = DeviceAligner(padded, lengths)
     cutoff = d * max(p.penalty_mismatch, p.penalty_gapopen + p.penalty_gapextend)
 
     def _exact_diffs(seed_id: int, target_ids: np.ndarray, compute=None):
@@ -151,7 +146,6 @@ def algo_run(p: Parameters, db: Db, progress: Progress) -> None:
         scr = device_aligner.scores(
             seed_id, target_ids,
             p.penalty_mismatch, p.penalty_gapopen, p.penalty_gapextend,
-            cutoff=cutoff,
         )
         # sound prune vs the artifact kernel: an accepted pair's walked
         # path is a valid alignment with <= d diffs, whose true cost

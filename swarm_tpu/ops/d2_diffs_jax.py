@@ -5,7 +5,7 @@ the cost-optimal alignment under the reference's pure-pair 8-bit
 semantics (swarm_native.c: d2_pair_diff_one / d2_pair_diff_batch16,
 mirroring src/search8.cc + src/utils/backtrack.h:51-138 in ideal
 mode). The native 16-lane kernel derives diffs by backtracking a
-direction-bit tile; on the TPU a backtrack is a serial gather chain,
+direction-bit tile; on a device a backtrack is a serial gather chain,
 so this kernel instead tracks the diff FORWARD through the same
 banded (H, E, F) recurrence: alongside each cost it carries the
 difference count of the path the backtrack WOULD choose, updated with
@@ -24,11 +24,13 @@ priority order, the forward-tracked diff equals the backtracked diff
 cell for cell (regression-pinned against the native kernel by
 tests/test_d2_diffs_jax.py over randomized tie-heavy corpora).
 
-Shapes are TPU-friendly: tasks (directed pairs) ride the lane axis
-[N]; the band (width 2B+1, ~23 at d=2) is unrolled; rows are a
+Tasks (directed pairs) ride the array axis [N]; the band (width
+2B+1, 23 at d=2 with default scores) is unrolled; rows are a
 lax.scan. Every sequence access is a column slice — q's character at
-band slot k of row r is index r+k-B for EVERY lane, so there are no
-per-lane gathers inside the scan.
+band slot k of row r is index r+k-B for EVERY task, so there are no
+per-task gathers inside the scan. On the GPU, bands up to
+d2_diffs_kernel.MAX_BAND run the same DP as a Pallas (Triton) kernel
+that keeps the band state in registers (ops/d2_diffs_kernel.py).
 """
 
 from functools import partial
@@ -178,27 +180,35 @@ class DeviceDiffEngine:
         B = -(-need // ge)
         return max(B, 1)
 
-    def _use_pallas(self, B):
-        """The Pallas kernel (ops/pallas_d2_diffs.py) serves TPU runs:
-        VMEM per 1024-task block is ~8*Lmax kB of codes + 16*(2B+1) kB
-        of band state, so it owns Lmax <= 1024; the XLA scan remains
-        the fallback (and the CPU-backend path, where Mosaic is
-        unavailable outside interpret mode)."""
-        import os
+    @staticmethod
+    def use_kernel(B: int) -> bool:
+        """The register-resident kernel on the GPU, for bands it can
+        hold (B <= MAX_BAND); the XLA scan otherwise, and on the CPU,
+        where Triton does not compile."""
+        from ..device import device_platform
+        from .d2_diffs_kernel import MAX_BAND
 
-        mode = os.environ.get("SWARM_TPU_D2_DIFFS_KERNEL", "auto")
-        if mode == "scan":
-            return False
-        if mode == "pallas":
-            return True
-        if self.Lmax > 1024 or B > 63:
-            return False
-        try:
-            from ..device import device_available, device_platform
+        return device_platform() == "gpu" and B <= MAX_BAND
 
-            return device_available() and device_platform() != "cpu"
-        except Exception:
-            return False
+    def task_arrays(self, tq, td):
+        """Device arrays (rows_q, rows_d, qlen, dlen) for the directed
+        tasks (query tq[i], target td[i]), padded to a power of two
+        (at least 1024) so compile shapes come in buckets; padding
+        tasks have qlen 0 and come out rejected."""
+        npad = max(1024, 1 << (len(tq) - 1).bit_length())
+        qi = np.zeros(npad, dtype=np.int64)
+        di = np.zeros(npad, dtype=np.int64)
+        qi[: len(tq)] = tq
+        di[: len(td)] = td
+        qi = jnp.asarray(qi)
+        di = jnp.asarray(di)
+        qlen = jnp.take(self.len_dev, qi)
+        return (
+            jnp.take(self.rows_dev, qi, axis=0),
+            jnp.take(self.rows_dev, di, axis=0),
+            jnp.where(jnp.arange(npad) < len(tq), qlen, 0),
+            jnp.take(self.len_dev, di),
+        )
 
     def diffs_pairs(self, pa, pb, mismatch, go, ge, no_break):
         """(diff_ab, diff_ba) int64 arrays, -1 = skipped/rejected."""
@@ -212,38 +222,25 @@ class DeviceDiffEngine:
         td = np.concatenate([pb[need_ab], pa[need_ba]])
         n_ab = int(need_ab.sum())
         out = np.empty(len(tq), dtype=np.int64)
-        use_pallas = self._use_pallas(B)
-        # lane-count buckets bound compile shapes; 1M lanes of state
-        # stay under ~600 MB of HBM at d=2 widths
+        use_kernel = self.use_kernel(B)
+        from .. import metrics
+
+        metrics.engine(d2_diffs="device_kernel" if use_kernel
+                       else "device_scan")
+        # task-count buckets bound compile shapes; 1M tasks of scan
+        # state stay under ~600 MB of device memory at d=2 widths
         CHUNK = 1 << 20
+        if use_kernel:
+            from .d2_diffs_kernel import d2_diffs_kernel as program
+        else:
+            program = d2_diffs_program
         for c0 in range(0, len(tq), CHUNK):
             part_q = tq[c0:c0 + CHUNK]
-            part_d = td[c0:c0 + CHUNK]
-            npad = max(1024, 1 << (len(part_q) - 1).bit_length())
-            qi = np.zeros(npad, dtype=np.int64)
-            di = np.zeros(npad, dtype=np.int64)
-            qi[: len(part_q)] = part_q
-            di[: len(part_d)] = part_d
-            lanes_q = jnp.take(self.rows_dev, jnp.asarray(qi), axis=0)
-            lanes_d = jnp.take(self.rows_dev, jnp.asarray(di), axis=0)
-            qlen = jnp.take(self.len_dev, jnp.asarray(qi))
-            dlen = jnp.take(self.len_dev, jnp.asarray(di))
-            qlen = jnp.where(
-                jnp.arange(npad) < len(part_q), qlen, 0)
-            if use_pallas:
-                from .pallas_d2_diffs import d2_diffs_pallas
-
-                diffs = d2_diffs_pallas(
-                    lanes_q, lanes_d, qlen, dlen,
-                    B=B, Lmax=self.Lmax, mismatch=int(mismatch),
-                    go=int(go), ge=int(ge), d=self.d,
-                )
-            else:
-                diffs = d2_diffs_program(
-                    lanes_q, lanes_d, qlen, dlen,
-                    B=B, Lmax=self.Lmax, mismatch=int(mismatch),
-                    go=int(go), ge=int(ge), d=self.d,
-                )
+            diffs = program(
+                *self.task_arrays(part_q, td[c0:c0 + CHUNK]),
+                B=B, Lmax=self.Lmax, mismatch=int(mismatch),
+                go=int(go), ge=int(ge), d=self.d,
+            )
             out[c0:c0 + CHUNK] = np.asarray(
                 diffs[: len(part_q)]).astype(np.int64)
         diff_ab = np.full(P, -1, dtype=np.int64)

@@ -1,16 +1,16 @@
-"""Bulk d>=2 candidate discovery on the MXU (the TPU-first d>=2 path).
+"""Bulk d>=2 candidate discovery as int8 matrix products on the device.
 
 The reference screens candidates per (sub)seed with a qgram popcount
 loop (src/qgram.cc:104-236 + src/algo.cc:423-432): a latency-bound
 sequential scan over the remaining pool, repeated for every subseed.
-On TPU the same mathematics — Hamming distance between 1024-bit 5-mer
-parity profiles — is a dense int8 matmul: mapping profile bits to
-{+1, -1} lanes gives
+On the device the same mathematics — Hamming distance between
+1024-bit 5-mer parity profiles — is a dense int8 matmul: mapping
+profile bits to {+1, -1} lanes gives
 
     hamming(a, b) = (1024 - dot(a_pm1, b_pm1)) / 2
 
 so ALL n^2/2 candidate screens become tiled [T, 1024] x [1024, T]
-contractions on the systolic array, with the edit-distance bound
+integer contractions, with the edit-distance bound
 mindiff = ceil(hamming / 10) <= d  <=>  dot >= 1024 - 20d
 (src/qgram.cc:247-252) plus the length bound |len_i - len_j| <= d
 (both sound lower bounds: survivors are a superset of the true
@@ -22,9 +22,10 @@ pairs (I <= J) and stores each step's survivor mask as packed u32
 words (device-resident), and extract_pairs compacts every step at
 once with one hierarchical supergroup/word/bit pass whose sorts scale
 with the survivors, not the n^2/2 screen space; only O(survivors)
-bytes ever cross the PCIe relay. Exact per-pair diffs and the
-order-preserving clustering replay run in native code
-(swarm_native.c: d2_diffs_pairs / algo_cluster_graph).
+bytes are copied to the host. Exact per-pair diffs run on the device
+(ops/d2_diffs_jax.py) or in native code (swarm_native.c:
+d2_diffs_pairs); the order-preserving clustering replay runs in
+native code (algo_cluster_graph).
 """
 
 import os
@@ -52,13 +53,11 @@ def _unpack_pm1(tile_bytes):
 def _screen_words_body(prof_bytes, lengths, tis, tjs, valid, T, n, d):
     """Phase A of the all-pairs screen: survivor masks as packed words.
 
-    The screen itself (unpack + [T,1024] x [1024,T] int8 matmul + the
-    bound masks) costs ~0.06s for ALL tile pairs at 100k amplicons;
-    what made the old one-pass program slow was the PER-STEP two-level
-    nonzero compaction — 325 separate ~0.5M-element device sorts, ~2.2s
-    of a 2.3s screen. So the scan now only writes each step's survivor
-    mask bit-packed into u32 words ([K, T*T/32], device-resident), and
-    extract_pairs() compacts ALL steps with one hierarchical pass.
+    The scan writes each step's survivor mask (unpack + [T,1024] x
+    [1024,T] int8 matmul + the bound masks) bit-packed into u32 words
+    ([K, T*T/32], device-resident), and extract_pairs() compacts ALL
+    steps with one hierarchical pass: a per-step compaction would run
+    one device sort per tile pair.
 
     tis/tjs: [K] tile indices (I <= J); valid: [K] bool (False for
     padding steps when K is rounded up to a fixed chunk size).
@@ -187,11 +186,6 @@ def sharded_screen_extract(mesh, T, n, d, caps, capw, capc):
         return hit
     from jax.sharding import PartitionSpec as P
 
-    try:
-        from jax.experimental.shard_map import shard_map
-    except ImportError:  # newer jax: promoted out of experimental
-        from jax.shard_map import shard_map
-
     axis = mesh.axis_names[0]
 
     def local(prof, lengths, tis, tjs, valid):
@@ -202,12 +196,12 @@ def sharded_screen_extract(mesh, T, n, d, caps, capw, capc):
         counts = jnp.stack([n_s, n_w, n_c])
         return ga[None], gb[None], counts[None]
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(), P(), P(axis), P(axis), P(axis)),
         out_specs=(P(axis), P(axis), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     compiled = jax.jit(fn)
     _SHARDED_PROGRAMS[key] = compiled
@@ -222,11 +216,12 @@ _LAST_GOOD = {}
 
 
 def _params_path():
-    from .neighbors_jax import _CACHE_DIR
+    from .neighbors_jax import compile_cache_dir
 
-    if not _CACHE_DIR or _CACHE_DIR == "0":
+    cache = compile_cache_dir()
+    if not cache:
         return None
-    return os.path.join(_CACHE_DIR, "d2_screen_params.json")
+    return os.path.join(cache, "d2_screen_params.json")
 
 
 def _load_good():
@@ -252,6 +247,7 @@ def _save_good():
     try:
         import json
 
+        os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "w") as fh:
             json.dump(
@@ -312,7 +308,7 @@ class D2NetworkEngine:
                 all_tj.append(j)
         K = len(all_ti)
         # chunk size bounds the [C, T*T/32] words buffer (u32): 512
-        # steps at T=4096 is 1 GB of HBM
+        # steps at T=4096 is 1 GB of device memory
         chunk = int(os.environ.get("SWARM_TPU_D2_CHUNK", "512"))
         C = min(chunk, K)
         # extract_pairs decodes global word indices in int32: keep
@@ -439,10 +435,14 @@ class D2NetworkEngine:
         from .. import _native
 
         db = self.db
+        from .. import metrics
+
         if self.mesh is not None and self.mesh.devices.size > 1:
             pa, pb, n_screened = self.candidate_pairs_sharded(self.mesh)
+            metrics.engine(d2_screen="device_sharded")
         else:
             pa, pb, n_screened = self.candidate_pairs()
+            metrics.engine(d2_screen="device")
         if len(pa):
             # loud invariant: a decode bug (e.g. the round-4 int32
             # wrap) must fail here, not corrupt clusters downstream
@@ -453,21 +453,16 @@ class D2NetworkEngine:
                     f"d2 screen produced out-of-range pair index "
                     f"(min={lo}, max={hi}, n={self.n})"
                 )
-        # exact diffs: device forward-tracked kernel when the pair
-        # count amortizes its dispatch (the native 16-lane kernel does
-        # ~13us/pair on this host class; the device does the same
-        # [tasks, band] DP as column-sliced elementwise rows);
+        # exact diffs: the device forward-tracked DP when the pair
+        # count amortizes its dispatch (the 8192 crossover against the
+        # native 16-lane kernel is not yet measured on the GPU);
         # SWARM_TPU_D2_DIFFS=native|device overrides
         mode = os.environ.get("SWARM_TPU_D2_DIFFS", "auto")
         use_device = mode == "device"
         if mode == "auto" and len(pa) >= 8192:
-            try:
-                from ..device import device_available, device_platform
+            from ..device import device_platform
 
-                use_device = device_available() and \
-                    device_platform() != "cpu"
-            except Exception:
-                use_device = False
+            use_device = device_platform() != "cpu"
         if use_device:
             from .d2_diffs_jax import DeviceDiffEngine
 
@@ -477,6 +472,7 @@ class D2NetworkEngine:
                 pa, pb, mismatch, gapopen, gapextend, no_break,
             )
         else:
+            metrics.engine(d2_diffs="native")
             diff_ab, diff_ba = _native.d2_diffs_pairs(
                 db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
                 self.d, mismatch, gapopen, gapextend, no_break,

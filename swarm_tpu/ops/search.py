@@ -6,7 +6,7 @@ backtrack tie-breaking (src/utils/backtrack.h) determine the *number of
 differences* used for all d>=2 clustering decisions. This module
 reproduces those bits exactly with wide-integer arithmetic, batched
 over target sequences (one query vs many targets — the same batching
-axis the reference maps onto SIMD channels, here mapped onto VPU lanes).
+axis the reference maps onto SIMD channels, here an array axis).
 
 Saturation semantics: the SIMD kernels saturate at 255 (8-bit mode) or
 65535 (16-bit mode) and reject saturated scores with diff=max. Because

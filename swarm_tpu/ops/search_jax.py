@@ -2,9 +2,10 @@
 
 The reference's hot kernel is a striped SIMD Needleman-Wunsch in cost
 space whose backtracked difference count decides membership
-(src/search8.cc, src/search16.cc). The TPU formulation splits the work:
+(src/search8.cc, src/search16.cc). The device formulation splits the
+work:
 
-  1. THIS module: a batched score-only forward pass over the VPU —
+  1. THIS module: a batched score-only forward pass on the device —
      one query row per lax.scan step, the gap-F recurrence solved with
      the same min-plus prefix-scan trick as ops/search.py (exact for
      Q >= R >= 0). No direction bits, no backtrack: output is [B] i32
@@ -20,8 +21,6 @@ The screen is sound: diff(pair) <= d  ==>  score(pair) <= cutoff, so no
 accepted pair is ever lost; everything the screen passes is re-checked
 exactly.
 """
-
-import os
 
 from functools import partial
 
@@ -109,89 +108,23 @@ def nw_scores_device(
 
 
 class DeviceAligner:
-    """Holds device-resident codes and dispatches batched screens.
-
-    On TPU the forward pass runs as the Pallas full-row kernel
-    (ops/pallas_nw.py, DP state resident in VMEM — measured ~3x the
-    XLA-scan throughput at 2.0 Gcell/s on v5e); elsewhere it falls back
-    to the scan implementation above. Scores are bit-identical.
-    """
+    """Holds device-resident codes and dispatches batched screens."""
 
     #: below this batch size the dispatch latency exceeds the host cost
+    #: (not yet measured on the GPU)
     MIN_DEVICE_BATCH = 2048
 
     def __init__(self, padded_np: np.ndarray, lengths_np: np.ndarray):
-        n, W = padded_np.shape
-        W_pad = 128 * ((W + 127) // 128)
-        if W_pad != W:
-            wide = np.zeros((n, W_pad), dtype=np.uint8)
-            wide[:, :W] = padded_np
-            padded_np = wide
         self.padded = jnp.asarray(padded_np)
         self.lengths = jnp.asarray(lengths_np.astype(np.int32))
-        self.n = n
-        self._pallas = None
-        self._pallas_band = None
-        if jax.default_backend() == "tpu" and os.environ.get(
-            "SWARM_TPU_PALLAS", "1"
-        ) != "0":
-            from .pallas_nw import (
-                make_banded_scores_pallas,
-                make_banded_scores_pallas_band,
-            )
-
-            kernel = make_banded_scores_pallas(P_TILE=8)
-            kernel_band = make_banded_scores_pallas_band(P_TILE=8)
-
-            @partial(jax.jit, static_argnames=("mm", "go", "ge"))
-            def pallas_scores(padded, lengths, seed_id, ids, mm, go, ge):
-                tid = jnp.maximum(ids, 0)
-                trows = padded[tid]
-                tlens = jnp.where(ids >= 0, lengths[tid], 0)
-                qrows = jnp.broadcast_to(padded[seed_id], trows.shape)
-                qlens = jnp.broadcast_to(lengths[seed_id], tlens.shape)
-                return kernel(qrows, trows, qlens, tlens, mm, go, ge)
-
-            @partial(jax.jit, static_argnames=("mm", "go", "ge", "band"))
-            def pallas_scores_band(padded, lengths, seed_id, ids,
-                                   mm, go, ge, band):
-                tid = jnp.maximum(ids, 0)
-                trows = padded[tid]
-                tlens = jnp.where(ids >= 0, lengths[tid], 0)
-                qrows = jnp.broadcast_to(padded[seed_id], trows.shape)
-                qlens = jnp.broadcast_to(lengths[seed_id], tlens.shape)
-                return kernel_band(qrows, trows, qlens, tlens,
-                                   mm, go, ge, band)
-
-            self._pallas = pallas_scores
-            self._pallas_band = pallas_scores_band
+        self.n = padded_np.shape[0]
 
     def scores(self, seed_id: int, target_ids: np.ndarray,
-               mismatch: int, gapopen: int, gapextend: int,
-               cutoff: int = None) -> np.ndarray:
+               mismatch: int, gapopen: int, gapextend: int) -> np.ndarray:
         B = len(target_ids)
         b_pad = 1 << max(11, (B - 1).bit_length())
         ids = np.full(b_pad, -1, dtype=np.int32)
         ids[:B] = target_ids
-        if cutoff is not None and self._pallas_band is not None:
-            # the O(rows*128) banded kernel: exact up to the cutoff,
-            # conservative beyond it — all the screen consumes
-            from .pallas_nw import band_for_cutoff
-
-            band = band_for_cutoff(cutoff, gapopen, gapextend)
-            if band <= 63:
-                out = self._pallas_band(
-                    self.padded, self.lengths, jnp.int32(seed_id),
-                    jnp.asarray(ids), mm=mismatch, go=gapopen,
-                    ge=gapextend, band=band,
-                )
-                return np.asarray(out)[:B]
-        if self._pallas is not None:
-            out = self._pallas(
-                self.padded, self.lengths, jnp.int32(seed_id),
-                jnp.asarray(ids), mm=mismatch, go=gapopen, ge=gapextend,
-            )
-            return np.asarray(out)[:B]
         out = nw_scores_device(
             self.padded, self.lengths,
             jnp.int32(seed_id), jnp.asarray(ids),

@@ -2,8 +2,8 @@
 
 The reference's only parallelism is a pthread pool over shared memory
 (src/utils/threads.h, SURVEY.md section 2 "parallelism strategies").
-The TPU-native equivalent is SPMD over a jax.sharding.Mesh: amplicon
-batches are sharded across chips (data parallel over the ICI), the
+The device equivalent is SPMD over a jax.sharding.Mesh: amplicon
+batches are sharded across devices (data parallel), the
 sequence-hash table and Zobrist tables are replicated, and candidate
 counts are merged with psum. Cross-host meshes (jax.distributed) are
 wired in .distributed.

@@ -8,11 +8,11 @@ programs across processes:
  - `maybe_initialize()` joins the coordination service when the
    SWARM_TPU_COORDINATOR / SWARM_TPU_NUM_PROCESSES /
    SWARM_TPU_PROCESS_ID environment variables are set (the standard
-   jax.distributed contract; on Cloud TPU pods plain
-   jax.distributed.initialize() autodetects instead);
- - `global_mesh()` spans every process's devices (ICI within a host,
-   DCN across hosts — the collectives ride whatever the topology
-   provides);
+   jax.distributed contract: coordinator address, process count and
+   process id are given explicitly);
+ - `global_mesh()` spans every process's devices (NVLink within a
+   host, the network across hosts — the collectives ride whatever the
+   topology provides);
  - `DistributedJoin` shards the hash/key arrays over the global mesh
    with each process feeding its local shard
    (host_local_array_to_global_array), runs the same sharded join

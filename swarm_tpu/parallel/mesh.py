@@ -5,7 +5,7 @@ stealing, src/algod1.cc:641-669, recast as SPMD):
 
   - mesh axis "amps": the amplicon chunk axis is sharded — every device
     generates variant hashes and joins them against the table for its
-    own slice of the chunk (data parallelism over ICI);
+    own slice of the chunk (data parallelism);
   - the sorted sequence-hash table, Zobrist table and abundance ranks
     are replicated (they are small: O(n) u32 words);
   - each device compacts its own candidate list (static per-device
@@ -214,7 +214,7 @@ class SortJoinShardedEngine:
     """Distributed d=1 sort-join over a device mesh.
 
     Decomposition: amplicon shards generate deletion keys in parallel;
-    keys travel to their hash-range owner over the ICI (all_to_all);
+    keys travel to their hash-range owner (all_to_all);
     each device joins + verifies its range against the replicated
     2-bit code table; the host concatenates the per-range verified
     pairs (ranges are disjoint, so the union is exact).
@@ -397,7 +397,7 @@ def _shard_variant_keys(ids, padded_full, lengths_full, zob, lcap):
 
 def _route_blocks(hi, lo, amp, meta, valid, log2d, cap_block):
     """Stage keys into fixed per-destination blocks (dest = top log2d
-    bits of hi) and exchange them over the ICI. Returns the received
+    bits of hi) and exchange them (all_to_all). Returns the received
     (hi, lo, amp, meta) streams plus the largest block fill (overflow
     detection)."""
     D = 1 << log2d
@@ -562,7 +562,7 @@ def _sharded_graft_body(
 class ShardedGraftEngine:
     """Distributed graft-candidate discovery: both sides' variant keys
     are generated shard-parallel, routed to hash-range owners over the
-    ICI, joined and midpoint-verified per range. Same contract as
+    device interconnect, joined and midpoint-verified per range. Same contract as
     ops/fastidious_jax.GraftEngine.graft_candidates (count semantics:
     one verified triple per distinct midpoint instance)."""
 

@@ -30,7 +30,7 @@ from pathlib import Path
 # binary forked from a fat Python (post-JAX import, hundreds of MB)
 # inherits that high-water mark and its --ceiling accounting
 # (arch_get_memused, src/arch.cc:41-75) fatals where a shell-launched
-# run succeeds. All reference invocations below are relayed through
+# run succeeds. All reference invocations below are passed through
 # this lean bash co-process so they see the canonical envelope.
 _BASH = subprocess.Popen(
     ["bash"], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
@@ -184,35 +184,35 @@ def snapshot(workdir: Path) -> dict:
 
 def compare_case(binary: Path, case: dict, root: Path):
     ref_dir = root / "ref"
-    tpu_dir = root / "tpu"
+    ours_dir = root / "ours"
     ref_dir.mkdir()
-    tpu_dir.mkdir()
+    ours_dir.mkdir()
     ref_rc, ref_out, ref_err = run_ref(binary, case, ref_dir)
-    tpu_rc, tpu_out, tpu_err = run_ours(case, tpu_dir)
+    ours_rc, ours_out, ours_err = run_ours(case, ours_dir)
     problems = []
-    if ref_rc != tpu_rc:
-        problems.append(f"exit code: ref={ref_rc} ours={tpu_rc}")
-    if ref_out != tpu_out:
-        problems.append(f"stdout: ref={ref_out[:200]!r} ours={tpu_out[:200]!r}")
-    if ref_err != tpu_err:
+    if ref_rc != ours_rc:
+        problems.append(f"exit code: ref={ref_rc} ours={ours_rc}")
+    if ref_out != ours_out:
+        problems.append(f"stdout: ref={ref_out[:200]!r} ours={ours_out[:200]!r}")
+    if ref_err != ours_err:
         # show the first differing line for debuggability
-        rl, tl = ref_err.splitlines(), tpu_err.splitlines()
+        rl, tl = ref_err.splitlines(), ours_err.splitlines()
         diff = next(
             ((a, b) for a, b in zip(rl, tl) if a != b),
             (rl[len(tl):len(tl) + 1], tl[len(rl):len(rl) + 1]),
         )
         problems.append(f"stderr: first diff ref={diff[0]!r} ours={diff[1]!r}")
     ref_files = snapshot(ref_dir)
-    tpu_files = snapshot(tpu_dir)
-    if set(ref_files) != set(tpu_files):
+    ours_files = snapshot(ours_dir)
+    if set(ref_files) != set(ours_files):
         problems.append(
-            f"file sets: ref={sorted(ref_files)} ours={sorted(tpu_files)}"
+            f"file sets: ref={sorted(ref_files)} ours={sorted(ours_files)}"
         )
     else:
         for name, blob in ref_files.items():
-            if tpu_files[name] != blob:
+            if ours_files[name] != blob:
                 problems.append(
-                    f"{name}: ref={blob[:160]!r} ours={tpu_files[name][:160]!r}"
+                    f"{name}: ref={blob[:160]!r} ours={ours_files[name][:160]!r}"
                 )
     return problems
 

@@ -95,6 +95,38 @@ def test_device_diffs_match_native(tmp_path, seed, d, scores):
         np.testing.assert_array_equal(got_ba, want_ba)
 
 
+@pytest.mark.parametrize(
+    "length,lmax,d,scores",
+    [
+        (176, 192, 2, (4, 12, 4)),  # the d=2 benchmark width
+        (424, 448, 2, (4, 12, 4)),  # the long-amplicon width
+        (60, 64, 9, (3, 1, 2)),     # band B == MAX_BAND, the kernel's limit
+    ],
+)
+def test_device_diffs_match_native_at_width(tmp_path, length, lmax, d,
+                                            scores):
+    from swarm_tpu.ops.d2_diffs_jax import DeviceDiffEngine
+    from swarm_tpu.ops.d2_diffs_kernel import MAX_BAND
+
+    mismatch, go, ge = scores
+    db = _mkdb(tmp_path, _chain_corpus(length, 24, length, d + 1))
+    eng = DeviceDiffEngine(db, d)
+    assert eng.Lmax == lmax
+    B = eng.band_for_exact(d * max(mismatch, go + ge), go, ge)
+    assert B <= MAX_BAND and (d != 9 or B == MAX_BAND)
+    pa, pb = np.triu_indices(len(db), k=1)
+    pa = pa.astype(np.int64)
+    pb = pb.astype(np.int64)
+    want_ab, want_ba = _native.d2_diffs_pairs(
+        db.codes, db.offsets, db.lengths, db.abundances, pa, pb,
+        d, mismatch, go, ge, True, nthreads=1,
+    )
+    got_ab, got_ba = eng.diffs_pairs(pa, pb, mismatch, go, ge, True)
+    assert (want_ab >= 0).any()
+    np.testing.assert_array_equal(got_ab, want_ab)
+    np.testing.assert_array_equal(got_ba, want_ba)
+
+
 def test_engine_cli_parity_with_device_diffs(tmp_path, monkeypatch):
     """The network engine produces identical edges with either diff
     backend (device kernel forced on the CPU backend here)."""

@@ -1,4 +1,4 @@
-"""Parity of the d>=2 network engine (bulk MXU qgram join + graph
+"""Parity of the d>=2 network engine (bulk int8 qgram join + graph
 clustering replay) against the reference binary and the native engine.
 
 The engine reformulates src/algo.cc's per-seed loop as edge discovery

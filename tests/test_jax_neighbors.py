@@ -1,7 +1,7 @@
 """Cross-checks: the JAX device d=1 pipeline vs the numpy reference path.
 
 Runs on the CPU backend (conftest forces JAX_PLATFORMS=cpu with 8 virtual
-devices) — the same code compiles for TPU unchanged.
+devices) — the same code compiles for the GPU unchanged.
 """
 
 import numpy as np

@@ -39,7 +39,7 @@ def test_d2_multi_mnt_beyond_reference(both):
     the giant must land as its own singleton swarm."""
     fasta = _mixed_corpus(905, giant_len=2_000_000)
     workdir, r = both.run_one(
-        "tpu", ["-d", "2", "-o", "out.txt", "-s", "stats.txt"], fasta
+        "ours", ["-d", "2", "-o", "out.txt", "-s", "stats.txt"], fasta
     )
     assert r.returncode == 0, r.stderr[-500:]
     stats = (workdir / "stats.txt").read_text().splitlines()

@@ -5,7 +5,7 @@ percentages) to stderr; the percentage milestones appear only in this
 mode (src/utils/progress.cc). These tests diff raw stderr byte-for-byte
 on corpora large enough (>= GRANULARITY amplicons) that every phase
 emits real milestone sequences — the regime the -l-based suite never
-sees (round-1 VERDICT, "What's weak" #1).
+sees.
 """
 
 import pytest

@@ -9,7 +9,7 @@ import os
 
 import pytest
 
-from tests.genfasta import amplicon_cloud
+from genfasta import amplicon_cloud
 
 
 @pytest.fixture
